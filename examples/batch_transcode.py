@@ -2,9 +2,9 @@
 
 Streams batches through the stage-overlapped hybrid scheduler: host
 entropy decode -> gap-delta sparse upload (one coalesced buffer) ->
-fused dequant+IDCT+upsample+resize on the TPU -> either coalesced
+fused dequant+IDCT+upsample+resize on the device -> either coalesced
 4:2:0 planes + host raw encode (default) or the full on-chip encode
-(--device-encode: fDCT+quantise+TPU Huffman, scan bytes byte-identical
+(--device-encode: fDCT+quantise+device Huffman, scan bytes byte-identical
 to libjpeg), while a host worker steals whole batches for the pure
 host path whenever the device chain is busy.
 

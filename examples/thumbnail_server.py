@@ -1,7 +1,7 @@
 """Example: a dynamic-batching thumbnail service.
 
 Single-image requests arrive one at a time; the DynamicBatcher groups
-them into TPU-sized batches transparently (the picha-style surface —
+them into device-sized batches transparently (the picha-style surface —
 one image in, one image out — is preserved via Futures).
 
     python examples/thumbnail_server.py tests/fixtures/*.jpg

@@ -1,10 +1,10 @@
-"""picha_tpu — a TPU-native image pipeline with the capabilities of
+"""picha_tpu — a device-native image pipeline with the capabilities of
 jhs67/picha.
 
 Public surface mirrors the reference (index.js:1-233): ``Image``,
 ``catalog``, format-sniffing ``stat``/``decode``/``decodeSync``,
 per-format ``stat*/decode*(Sync)/encode*(Sync)``, ``resize(Sync)``,
-``colorConvert(Sync)`` — plus the batched TPU pipeline API under
+``colorConvert(Sync)`` — plus the batched device pipeline API under
 ``picha_tpu.pipeline`` which is where the throughput lives.
 
 Async convention: ``op(args..., cb)`` where ``cb(err, result)`` runs on

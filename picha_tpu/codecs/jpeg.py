@@ -24,7 +24,7 @@ decode ``scaleDenom`` in {1,2,4,8} (extension): DCT-scaled decode at
 at 1/2; output differs from full-decode+resize, it is a different
 resampling); ``restartInterval`` (extension, default 0) writes DRI +
 restart markers every N MCUs — segments become independently decodable, which
-the TPU entropy decoder exploits for exact parallel entry states;
+the device entropy decoder exploits for exact parallel entry states;
 ``progressive`` (extension, default False) writes libjpeg's stock
 spectral-selection/successive-approximation scan script (the reference
 encoded baseline only; its decoder — and ours — reads both).
@@ -83,7 +83,7 @@ def decode(buf: bytes, opts: dict) -> Image:
         ch = 1 if req == "grey" else 3
     if opts.get("backend") == "tpu":
         if denom > 1:
-            # the TPU coefficient path decodes at full size; silently
+            # the device coefficient path decodes at full size; silently
             # returning different geometry for the same opts dict
             # depending on backend would be a trap
             raise InvalidOptionsError(

@@ -34,6 +34,10 @@ from ..errors import CodecError, InvalidOptionsError
 from ..image import Image
 from ..native import lib as native
 
+if not native.webp_available():
+    # catalog.load_default_codecs reports this as "codec unavailable"
+    raise ImportError("the native library was built without libwebp")
+
 _PRESETS = {"default": 0, "picture": 1, "photo": 2, "drawing": 3,
             "icon": 4, "text": 5, "lossless": 0}
 

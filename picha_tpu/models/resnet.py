@@ -3,7 +3,7 @@ image pipeline (models come in two families — patch-transformer
 (vit.py) and convolutional — both pure-jax pytrees with dp×tp sharding
 rules; GSPMD inserts the collectives).
 
-Convs lower to MXU matmuls via XLA's implicit im2col; channels are the
+Convs lower to matmuls via XLA's implicit im2col; channels are the
 sharded ('tp') axis: conv kernels shard on output channels, the
 block's second conv on input channels (mirroring the qkv/proj split in
 the ViT).
@@ -109,7 +109,7 @@ def _norm(x, scale):
 def _conv(x, w, stride=1):
     import jax
 
-    # plain same-dtype conv: the MXU accumulates in f32 internally, and
+    # plain same-dtype conv: the matmul unit accumulates in f32, and
     # keeping operand/result dtypes uniform keeps the VJP well-typed
     return jax.lax.conv_general_dilated(
         x, w.astype(x.dtype), (stride, stride), "SAME",

@@ -1,7 +1,7 @@
 """A minimal-but-real Vision Transformer: the consumer for the
 training-input pipeline (BASELINE.json config 5 — "1024-image batched
 JPEG decode + random-crop + resize 224x224 + normalize feeding a ViT
-step on TPU").
+step on the device").
 
 Pure-jax pytree params (no framework dep), bfloat16 matmul path with
 float32 accumulations, dp×tp sharding rules for mesh execution:

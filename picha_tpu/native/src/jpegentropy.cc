@@ -35,7 +35,7 @@ const uint8_t kZigzagNat[64] = {
 
 // MSB-first bit reader over one unstuffed segment; reads past the end
 // return 1-bits (the convention parse_baseline's oracle decoder and
-// the TPU kernel share — a truncated stream walks to a harmless EOB).
+// the device kernel share — a truncated stream walks to a harmless EOB).
 struct BitReader {
   const uint8_t* d;
   int64_t n;      // bytes

@@ -4,7 +4,7 @@
 //  * full host decode/encode — the bit-parity reference path, same
 //    library the reference used (src/jpegcodec.cc), independent code;
 //  * raw DCT coefficient import/export (jpeg_read_coefficients /
-//    jpeg_write_coefficients) — the serial entropy stage of the TPU
+//    jpeg_write_coefficients) — the serial entropy stage of the device
 //    pipeline, where dequant+IDCT+upsample+YCbCr->RGB run on-chip.
 //
 // All error paths convert libjpeg longjmp aborts into error strings
@@ -171,13 +171,13 @@ PICHA_API int picha_jpeg_encode(const uint8_t* src, int width, int height,
   if (quality > 100) quality = 100;
   jpeg_set_quality(&cinfo, quality, TRUE /* force_baseline */);
   // restart markers make the scan parallel-decodable (each segment is
-  // an independent bitstream with reset DC prediction) — the TPU
+  // an independent bitstream with reset DC prediction) — the device
   // entropy decoder exploits them; small intervals cost ~2 bytes/MCU
   if (restart_mcus > 0) cinfo.restart_interval = (unsigned)restart_mcus;
   // libjpeg's stock spectral-selection/successive-approximation script
   // (beyond the reference, which wrote baseline only)
   if (progressive) jpeg_simple_progression(&cinfo);
-  // option parity with the TPU encode branch (codecs/jpeg.py): these
+  // option parity with the device encode branch (codecs/jpeg.py): these
   // must not silently depend on the backend
   if (optimize) cinfo.optimize_coding = TRUE;
   if (subsample444 && channels == 3) {
@@ -202,7 +202,7 @@ PICHA_API int picha_jpeg_encode(const uint8_t* src, int width, int height,
 // skipping libjpeg's chroma upsample and YCbCr->RGB stages. The caller
 // resizes the planes directly (Y with the exact cubic weights, chroma
 // with the composed downsample.resize.upsample operator — the same
-// linear composition the TPU fused path uses) and re-encodes via
+// linear composition the device fused path uses) and re-encodes via
 // picha_jpeg_encode_raw420, so the whole host pipeline stays in the
 // source's native colour space. Returns 1 (no error string) when the
 // source is not 3-component YCbCr 2x2/1x1/1x1 so callers can fall back
@@ -289,7 +289,7 @@ PICHA_API int picha_jpeg_decode_raw420(const uint8_t* src, size_t len,
   return 0;
 }
 
-// Encode from pre-computed 4:2:0 planes (jpeg_write_raw_data): the TPU
+// Encode from pre-computed 4:2:0 planes (jpeg_write_raw_data): the device
 // already did RGB->YCbCr and chroma downsampling; the host does only
 // fDCT + quantisation + Huffman. Planes must be padded: Y to
 // (ceil16(h), ceil16(w)), Cb/Cr to half that.
@@ -446,7 +446,7 @@ PICHA_API int picha_jpeg_transcode_raw420(
 }
 
 // ---------------------------------------------------------------------------
-// Raw coefficient access (TPU pixel-stage path)
+// Raw coefficient access (device pixel-stage path)
 // ---------------------------------------------------------------------------
 
 struct PichaJpegCoefs {

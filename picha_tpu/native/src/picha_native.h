@@ -1,10 +1,10 @@
 // C ABI for picha_tpu's host-side native runtime.
 //
-// The TPU owns the pixel math (Pallas/XLA); this library owns the
+// The device owns the pixel math (XLA); this library owns the
 // inherently serial bitstream work the reference did in C++ on libuv
 // threads (SURVEY.md §2): PNG scanline filter (re)construction, JPEG
 // entropy coding via libjpeg (full host path + raw DCT-coefficient
-// import/export for the TPU pixel-stage path), TIFF LZW/PackBits, and
+// import/export for the device pixel-stage path), TIFF LZW/PackBits, and
 // a libwebp shim. All functions are thread-safe (no globals) and
 // release the GIL naturally (called via ctypes).
 #pragma once
@@ -46,10 +46,10 @@ PICHA_API int picha_jpeg_decode(const uint8_t* src, size_t len,
 // Huffman tables; channels 1 -> grayscale, 3 -> YCbCr 4:2:0 (libjpeg
 // defaults, matching the reference's encoder src/jpegcodec.cc:334-370).
 // restart_mcus > 0 writes DRI + restart markers every restart_mcus
-// MCUs — makes the scan parallel-decodable (the TPU entropy decoder
+// MCUs — makes the scan parallel-decodable (the device entropy decoder
 // gets exactly known entry states per segment).
 // optimize: Huffman-optimized scan; subsample444: force 1x1 sampling
-// (colour default is libjpeg's 4:2:0) — option parity with the TPU
+// (colour default is libjpeg's 4:2:0) — option parity with the device
 // encode branch.
 PICHA_API int picha_jpeg_encode(const uint8_t* src, int width, int height,
                                 int stride, int channels, int quality,
@@ -78,7 +78,7 @@ PICHA_API int picha_jpeg_entropy_segments(
     const int32_t* hv, const int32_t* nbits, int ntab, int nthreads,
     int16_t* const* out);
 
-// Raw DCT coefficient access for the TPU pixel-stage path.
+// Raw DCT coefficient access for the device pixel-stage path.
 typedef struct PichaJpegCoefs PichaJpegCoefs;  // opaque
 PICHA_API int picha_jpeg_coef_open(const uint8_t* src, size_t len,
                                    PichaJpegCoefs** handle, char** err);
@@ -93,7 +93,7 @@ PICHA_API int picha_jpeg_coef_comp_info(PichaJpegCoefs* h, int comp,
 PICHA_API int picha_jpeg_coef_read(PichaJpegCoefs* h, int comp, int16_t* out);
 PICHA_API void picha_jpeg_coef_close(PichaJpegCoefs* h);
 
-// Assemble a JPEG from quantised coefficients (TPU encode path).
+// Assemble a JPEG from quantised coefficients (device encode path).
 // comps: ncomp arrays of (blocks_h*blocks_w*64) int16; samp factors and
 // qtables per component; grey: ncomp==1. jpeg_color_space 2 (JCS_RGB)
 // writes an RGB-tagged file ('R','G','B' ids + Adobe APP14) for
@@ -204,7 +204,7 @@ PICHA_API int picha_fax_decode(const uint8_t* src, size_t len, int width,
                                int height, int comp, uint32_t options,
                                uint8_t* out, int* rows_done, char** err);
 
-// ---- sparse coefficient packing (TPU upload wire format) ------------------
+// ---- sparse coefficient packing (device upload wire format) ------------------
 // Emits (gap uint8, value int8) pairs for the nonzeros of an int16 plane
 // plus an int8-overflow correction list; see sparsepack.cc. Caller sizes
 // gaps/vals for n + n/255 + 2 entries and corr_* for n entries.

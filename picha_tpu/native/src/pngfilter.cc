@@ -3,7 +3,7 @@
 // The PNG filter pass is the one inherently row-sequential stage of the
 // PNG pipeline (filters Up/Average/Paeth reference the previous row,
 // Sub/Average/Paeth the previous pixel), so it runs on the host while
-// the TPU handles everything downstream (bit expansion, palette,
+// the device handles everything downstream (bit expansion, palette,
 // colour mapping). Reference behaviour: libpng's reconstruction as
 // driven by src/pngcodec.cc; this is an independent implementation of
 // the PNG spec (RFC 2083 §6).

@@ -1,5 +1,5 @@
 // Gap-delta sparse packing of quantised JPEG coefficient planes for the
-// host->TPU upload path (pipeline/jpeg_batch.py upload="gap8").
+// host->device upload path (pipeline/jpeg_batch.py upload="gap8").
 //
 // Quantised AC coefficients are mostly zero (~85-90% at quality 85), so
 // the wire format is one (gap uint8, value int8) pair per nonzero:
@@ -9,15 +9,14 @@
 // of (flat_index int32, residual int16), which the device applies with
 // a second sorted scatter (same mechanism as the int8 upload mode).
 // A final (gap to n-1, value 0) pair pins the last index at n-1 so the
-// caller's zero padding keeps indices sorted — TPU scatter-add with
+// caller's zero padding keeps indices sorted — device scatter-add with
 // indices_are_sorted stays on the fast path.
 //
 // This replaces the reference's "ship pixels" host->device story
-// (there is none: src/picha.cc marshals buffers in-process); over a
-// ~50 MB/s PCIe-oid link the coefficient bytes are the bottleneck, so
-// the wire format is the perf-critical contract. The scan is AVX2
-// (16 lanes/iteration + movemask) because the single host core is the
-// next bottleneck after the link.
+// (there is none: src/picha.cc marshals buffers in-process); the
+// coefficient bytes cross the host->device link, so the wire format is
+// the perf-critical contract. The scan is AVX2 (16 lanes/iteration +
+// movemask) so the host stage keeps up with the link.
 #include <cstddef>
 #include <cstdint>
 #include <cstring>

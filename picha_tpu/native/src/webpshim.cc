@@ -5,13 +5,28 @@
 // we do the same, exposing a flat C ABI with the reference's option
 // surface: presets (default/picture/photo/drawing/icon/text/lossless),
 // quality, alphaQuality, exact (src/webpcodec.cc:155-195).
+// Compiled with WITH_LIBWEBP when the system library is present;
+// otherwise every entry point fails and picha_webp_available() reports
+// 0, so the WebP codec stays unregistered (catalog.py).
 #include <cstdlib>
 #include <cstring>
 
+#ifdef WITH_LIBWEBP
 #include <webp/decode.h>
 #include <webp/encode.h>
+#endif
 
 #include "picha_native.h"
+
+PICHA_API int picha_webp_available() {
+#ifdef WITH_LIBWEBP
+  return 1;
+#else
+  return 0;
+#endif
+}
+
+#ifdef WITH_LIBWEBP
 
 PICHA_API int picha_webp_stat(const uint8_t* src, size_t len, int* width,
                               int* height, int* has_alpha) {
@@ -98,3 +113,22 @@ PICHA_API int picha_webp_encode(const uint8_t* src, int width, int height,
   WebPMemoryWriterClear(&writer);
   return 0;
 }
+
+#else  // !WITH_LIBWEBP
+
+PICHA_API int picha_webp_stat(const uint8_t*, size_t, int*, int*, int*) {
+  return -1;
+}
+
+PICHA_API int picha_webp_decode(const uint8_t*, size_t, int, uint8_t*, int,
+                                int, int) {
+  return -1;
+}
+
+PICHA_API int picha_webp_encode(const uint8_t*, int, int, int, int, int,
+                                float, int, int, int, int, int, int,
+                                uint8_t**, size_t*) {
+  return -1;
+}
+
+#endif  // WITH_LIBWEBP

@@ -20,7 +20,7 @@ We implement grey replication ``[g, g, g]``.
 
 The op is implemented once over a float32 (H, W, C) tensor, with numpy
 and jax array namespaces interchangeable — XLA fuses the whole
-unpack/map/pack chain into a single elementwise kernel on TPU.
+unpack/map/pack chain into a single elementwise kernel on the device.
 """
 from __future__ import annotations
 
@@ -67,7 +67,7 @@ def map_channels(x, src_channels: int, dst_channels: int, weights, xp):
     """Map a float (..., srcC) tensor to (..., dstC).
 
     `xp` is the array namespace (numpy or jax.numpy) so the same rules
-    serve the host path and the jitted TPU path.
+    serve the host path and the jitted device path.
     """
     sc, dc = src_channels, dst_channels
     if sc == dc:
@@ -153,7 +153,7 @@ def _jit_convert(src_pixel: str, dst_pixel: str, weights):
 
 def convert_batch(arr, src_pixel: str, dst_pixel: str, *, red_weight=None,
                   green_weight=None, blue_weight=None):
-    """TPU path: (..., H, W, C) batched conversion, jitted per format pair."""
+    """device path: (..., H, W, C) batched conversion, jitted per format pair."""
     weights = normalize_weights(red_weight, green_weight, blue_weight)
     return _jit_convert(src_pixel, dst_pixel, weights)(arr)
 

@@ -60,6 +60,12 @@ def upsample_matrix(factor: int, n_out: int, n_in: int,
 
 IDENTITY = "__identity__"  # decode-only: no resampling, W = I
 
+# Matmul precision of the two fold contractions: DEFAULT (TF32 on the
+# GPU). Measured on the H100 (PERF.md precision table): 0.26 LSB mean
+# from the strict host path at both DEFAULT and HIGHEST, while HIGHEST
+# takes about three times as long — so the cheapest precision.
+FOLD_PRECISION = "default"
+
 
 @functools.lru_cache(maxsize=64)
 def component_weights(dst_size: int, full_size: int, comp_size: int,
@@ -87,19 +93,12 @@ def component_weights(dst_size: int, full_size: int, comp_size: int,
     return T
 
 
-# Why the DENSE fold is the one fast path (two rounds of real-chip
-# A/Bs; full tables in docs/PERFORMANCE.md): the contribution matrices
-# are banded (~7x fewer FLOPs at 2x downscale), but every banded
-# formulation measured slower — the XLA vmap-gather form materialises
-# per-tile windows in HBM (4.95 ms vs 3.2 ms per 16x1080p batch), and
-# the windowed-VMEM Pallas kernel (row tiles resident in VMEM,
-# scalar-prefetched lane-aligned window starts — three variants:
-# 2-D grid, in-kernel loop, bf16 operands) lost 2.3-3.8x. The dense
-# K~1900 f32 matmul already runs the MXU at ~80% peak, so the FLOP
-# saving cannot pay for lower systolic-array utilisation on the small
-# banded tiles. The losing kernels were removed in round 3
-# (git history: ops/banded_pallas.py, resize_pallas.py,
-# jpeg_fused_pallas.py).
+# Why the DENSE fold is the one fast path: the contribution matrices
+# are banded (several times fewer FLOPs at 2x downscale), but every
+# banded formulation measured slower on the device — the XLA vmap-gather
+# form materialises per-tile windows in device memory, and the banded
+# Pallas kernels ran the small tiles at low matrix-unit utilisation.
+# Not measured on the H100 (docs/PERFORMANCE.md).
 
 
 def fused_component(coefs, qtable, comp_geom=None):
@@ -124,11 +123,13 @@ def fused_component(coefs, qtable, comp_geom=None):
     th = component_weights(out_w, width, dw, fx, filter_name, fscale,
                            fancy_h)
     tmp = jnp.einsum("nhwvu,owu->nhvo", cq, jnp.asarray(th),
-                     preferred_element_type=jnp.float32)
+                     preferred_element_type=jnp.float32,
+                     precision=FOLD_PRECISION)
     tv = component_weights(out_h, height, dh, fy, filter_name, fscale,
                            fancy_v)
     out = jnp.einsum("nhvo,yhv->nyo", tmp, jnp.asarray(tv),
-                     preferred_element_type=jnp.float32)
+                     preferred_element_type=jnp.float32,
+                     precision=FOLD_PRECISION)
     return out + 128.0
 
 

@@ -1,4 +1,4 @@
-"""JPEG baseline Huffman DECODING on the TPU.
+"""JPEG baseline Huffman DECODING on the device.
 
 SURVEY.md §7 calls entropy decode "inherently serial per-image" — the
 win there was batch parallelism on the host. This module moves the
@@ -15,11 +15,11 @@ ops/jpeg_scan_chunked.py):
      values are emitted as diffs, so predictors are not part of it,
   3. Jacobi iteration to the fixed point: chunk i+1's entry <- chunk
      i's exit; Huffman streams self-synchronise, so truth propagates
-     many chunks per pass (measured: sync distance ~12-15 kbit -> 13
-     passes at C=1024 for 1080p, image-size independent),
+     many chunks per pass (sync distance ~12-15 kbit -> 13 passes at
+     C=1024 for 1080p, image-size independent),
   4. a final pass re-decodes with converged entries and emits packed
-     (block, coef, value) triples, monotone per lane, which one
-     sorted scatter-add turns into dense coefficient planes; DC diffs
+     (block, coef, value) triples, monotone per lane, which a
+     scatter-add turns into dense coefficient planes; DC diffs
      are integrated by a segmented associative scan (resets at restart
      segments), and the scan-order -> component-grid permutation is a
      static gather.
@@ -50,15 +50,10 @@ from .jpeg_scan import (ScanInfo, ZIGZAG, derive_tables, mcu_slot_tables,
                         scatter_layout)
 
 CHUNK_BITS = 4096            # C: per-lane chunk size. Jacobi passes to
-#   fixpoint scale ~ sync_distance/C (measured 12/7/4/3 passes at
-#   C=1024/2048/4096/8192 on 1080p q85 — docs/PERFORMANCE.md round 4),
-#   while per-pass wall cost is ~total-bits-bound; the round-4 sweep
-#   (tools/time_chunked.py) measured 16x1080p chunked decode at
-#   C=2048/4096 -> 320.8/282.1 ms (C=1024 was not re-timed on chip —
-#   its 12-pass fixpoint predicts ~>360 ms). 4096 is the knee: beyond
-#   it the densify one-hot (nblkmax grows with C) eats the pass
-#   savings. RE-CONFIRMED after the round-5 paired-step/window/table
-#   rework: C=4096/6144/8192 -> 242.1/247.6/274.5 ms, parity exact.
+#   fixpoint scale ~ sync_distance/C (12/7/4/3 passes at
+#   C=1024/2048/4096/8192 on 1080p q85), while per-pass cost is
+#   ~total-bits-bound; 4096 was the knee of the sweep on the TPU
+#   (tools/time_chunked.py). Not re-swept on the H100.
 LANE_GRANULE = 2048          # lane-count bucket (bounds recompiles)
 WORD_GRANULE = 16384         # words-section floor granule (64 KiB)
 STEP_GRANULE = 64            # steps bucket (bounds recompiles)
@@ -144,7 +139,7 @@ class ScanBatch:
 
         # per-segment geometry, vectorized per image (restart-interval
         # streams have thousands of tiny segments; per-lane python
-        # lists measured ~150 ms/batch)
+        # lists are too slow on the host)
         seg_bytes: List[bytes] = []
         seg_img, seg_blk0, seg_nblk = [], [], []
         for img, info in enumerate(infos):
@@ -258,7 +253,7 @@ class ScanBatch:
         # almost always shares its Huffman tables (std tables), so the
         # per-step table select runs over a handful of UNIQUE rows held
         # in registers instead of streaming a per-lane expansion
-        # through HBM (the expansion measured ~half the kernel time)
+        # through device memory every step
         tabs = [prep_tables(i) for i in infos]
         uniq = {}
         # build at int32 width, guard, THEN narrow: assigning id 256
@@ -316,17 +311,15 @@ class ScanBatch:
         # the jit static key: mb depends on the batch's Huffman table
         # contents, so per-image optimized tables (PIL optimize=True)
         # would otherwise mint a fresh steps per batch and trigger a
-        # full recompile (minutes through the remote compile service).
+        # full recompile (tens of seconds for this graph).
         # Round up to a coarse granule like LANE_GRANULE/WORD_GRANULE.
         mb = min(min_bits_per_symbol(i) for i in infos)
         self.steps = -(-(int(C / mb) + 8) // STEP_GRANULE) * STEP_GRANULE
 
         # max blocks any lane can emit into (static): single-pass lanes
         # own whole segments; speculative chunk lanes are bounded by the
-        # step budget (a block consumes >= 2 symbols: DC + EOB). Feeds
-        # the densification matmul's block-slot axis — the 30M-element
-        # sorted scalar scatter this replaces measured 270 ms of the
-        # 410 ms device decode (docs/PERFORMANCE.md round 4).
+        # step budget (a block consumes >= 2 symbols: DC + EOB). Sizes
+        # the block-slot axis of the per-lane densification.
         if self.single_pass:
             span = int(seg_nblk.max())
         else:
@@ -470,8 +463,8 @@ def build_decoder_core(C: int, n_lanes: int, steps: int, B: int,
             # word covering the bit window at `pos` (slots wl..wl+n-1 —
             # XLA fuses the masked reductions into a single stream over
             # `win`). The old (L, W, 2) paired layout streamed twice
-            # the bytes per step, and the fetch is HBM-bound: the pair
-            # ablation measured it at 28% of the fixed-trip decode.
+            # the bytes per step, and the fetch is bound by memory
+            # traffic.
             wl = (pos >> 5) - word_base
             ar = jnp.arange(W)[None, :]
             wlc = wl[:, None]
@@ -499,9 +492,8 @@ def build_decoder_core(C: int, n_lanes: int, steps: int, B: int,
                 # single-use, so XLA fuses compare->mask->reduce into
                 # one register-resident pass. The previous combined
                 # (L, U, 33) where-product fed TWO consumers (clen and
-                # d_sel) and was materialized to HBM every step —
-                # measured 28% of the fixed-trip decode, as much as the
-                # bit-window fetch itself.
+                # d_sel) and was materialized to device memory every
+                # step.
                 Pm = P[:, None]
                 k16 = jnp.arange(17)[None, :]
                 cnt = jnp.zeros_like(P)
@@ -535,10 +527,9 @@ def build_decoder_core(C: int, n_lanes: int, steps: int, B: int,
                 sym_v = hv_flat[uid * 256 + idx]
             else:
                 # select-PACKED symbol lookup: 4 symbols per int32 word
-                # -> U-row select + 64-wide word one-hot + byte extract.
-                # Measured 3.52 ns/lane vs 10.52 for the 2048-entry
-                # scalar gather this replaces (tools/micro_scaling.py);
-                # the gather was 35% of the decode loop.
+                # -> U-row select + 64-wide word one-hot + byte extract
+                # (chosen over a 2048-entry scalar gather on the TPU;
+                # not measured on the H100).
                 u_oh2 = (uid[:, None] == jnp.arange(U)[None, :])
                 hr = jnp.sum(jnp.where(u_oh2[:, :, None],
                                        hv_pk[None, :, :], 0),
@@ -670,9 +661,9 @@ def build_decoder_core(C: int, n_lanes: int, steps: int, B: int,
 
         return step2 if pair else step
 
-    # lane emissions stay lane-LOCAL and densify via the one-hot matmul
-    # below (the global sorted scatter this replaces measured 270 ms of
-    # the 410 ms device decode). Single-pass lanes own whole disjoint
+    # lane emissions stay lane-LOCAL and densify per lane below (the
+    # global sorted scatter this replaced dominated the decode on the
+    # TPU; not measured on the H100). Single-pass lanes own whole disjoint
     # segments (each block has exactly one writer); speculative chunk
     # lanes share boundary blocks — a block of <= 1665 bits spans at
     # most 1665//C + 2 chunks, so global placement sums that many
@@ -697,11 +688,10 @@ def build_decoder_core(C: int, n_lanes: int, steps: int, B: int,
         # while_loop to the LAST active lane, bounded by `steps`: real
         # content averages ~6 bits/symbol, so most passes finish in a
         # third of the worst-case budget. The early-exit check runs
-        # once per EXIT_BLOCK-step inner block, not per step — the
-        # per-step cross-lane any() measured ~330 us/step on the real
-        # chip, as much as the whole step body (ablation table in
-        # docs/PERFORMANCE.md); `steps` is a STEP_GRANULE multiple so
-        # 64-aligned blocks never overshoot the budget.
+        # once per EXIT_BLOCK-step inner block, not per step — a
+        # per-step cross-lane any() costs as much as a step body;
+        # `steps` is a STEP_GRANULE multiple so 64-aligned blocks
+        # never overshoot the budget.
         def cond(c):
             i, st = c
             if "fixed" in ablate:  # fixed trips: comparable ablations
@@ -736,8 +726,7 @@ def build_decoder_core(C: int, n_lanes: int, steps: int, B: int,
         (steps, width) buffers. Powers the emission-merged chunked
         path: full convergence passes store their emissions, so the
         separate full-width emission pass disappears — one whole
-        bits-bound pass of the chunked decode (docs/PERFORMANCE.md
-        round 4). Returns (exit_entries, nblk, overflow, buf_i, buf_v).
+        bits-bound pass of the chunked decode. Returns (exit_entries, nblk, overflow, buf_i, buf_v).
         The block-bound mask uses the LANE-LOCAL loose bound (segment
         start + segment length): exact converged block starts are not
         known during convergence, and for a correct-entry lane on a
@@ -1027,10 +1016,9 @@ def build_decoder_core(C: int, n_lanes: int, steps: int, B: int,
             # full emitting pass ("fullemit" in ablate forces the full
             # branch, which CPU-sized tests can't reach otherwise).
             # The compact re-emission lands back at full width through
-            # a one-hot MXU matmul (emission values are < nblkmax*64 <
-            # 2^24, exact in f32) + an elementwise where — the same
-            # scatter-free pattern as the densification itself, so the
-            # merge adds no gathers/scatters anywhere downstream.
+            # a column scatter masked by `need`: fill duplicates of lane
+            # L-1 re-decode that lane's own entry, so they write the
+            # rows it already has.
             buf_i, buf_v = bufs
             need = jnp.zeros(L, bool)
             for e, d in zip(entries, emit_entries):
@@ -1048,32 +1036,9 @@ def build_decoder_core(C: int, n_lanes: int, steps: int, B: int,
                     lane_word_base[ids], bit_end[ids], limdelta_u,
                     hv_flat, hv, hv_pk, lane_uid6[ids],
                     lane_blk_base[ids], lane_blk_limit[ids])
-                # expand (steps, CAP) -> (steps, L): one-hot over the
-                # SORTED ids, first occurrence only (fill duplicates of
-                # lane L-1 would otherwise sum k copies of its rows)
-                first = jnp.concatenate(
-                    [jnp.ones(1, bool), ids[1:] != ids[:-1]])
-                oh = ((ids[:, None] == jnp.arange(L)[None, :])
-                      & first[:, None]).astype(jnp.float32)
-                # eidx reaches nblkmax*64 (~17 bits); the TPU's default
-                # f32 dot keeps only ~16 mantissa bits (measured
-                # maxdiff 256 at this scale), so the INDEX expand needs
-                # HIGHEST precision. Values are < 2^11 — default is
-                # exact for them.
-                nbi = jnp.dot(cbi.astype(jnp.float32), oh,
-                              preferred_element_type=jnp.float32,
-                              precision=jax.lax.Precision.HIGHEST)
-                # values are < 2^11: HIGH (bf16_3x, hi+lo covers 16
-                # mantissa bits against a 0/1 one-hot) is exact for
-                # them. Pinned explicitly — a backend whose DEFAULT dot
-                # is single-pass bf16 (~8 mantissa bits) would silently
-                # corrupt coefficients > 255 (advisor r4).
-                nbv = jnp.dot(cbv.astype(jnp.float32), oh,
-                              preferred_element_type=jnp.float32,
-                              precision=jax.lax.Precision.HIGH)
                 nm = need[None, :]
-                return (jnp.where(nm, nbi.astype(jnp.int32), buf_i),
-                        jnp.where(nm, nbv.astype(jnp.int32), buf_v))
+                return (jnp.where(nm, buf_i.at[:, ids].set(cbi), buf_i),
+                        jnp.where(nm, buf_v.at[:, ids].set(cbv), buf_v))
 
             force_full = "fullemit" in ablate
             buf_i, buf_v = jax.lax.cond(
@@ -1101,16 +1066,13 @@ def build_decoder_core(C: int, n_lanes: int, steps: int, B: int,
             # malformed stream -> host fallback
             ok = ok & ~jnp.any(st_end[0] < bit_end)
         if local_emit:
-            # --- matmul densification (single-pass) -----------------------
+            # --- densification ---------------------------------------------
             # Factor each lane-local emission index into (block slot,
-            # zigzag coef) and build the dense (lane, nblkmax, 64)
-            # planes as ONE-HOT batched matmuls on the MXU — ~20 ms at
-            # the bench shape where the sorted scalar scatter-add took
-            # 270 ms (tools/exp_scatter.py). Coefficients are < 2^12 and
-            # each (slot, coef) cell receives at most one real emission,
-            # so f32 accumulation is exact. The coef one-hot compares
-            # against the zigzag positions of natural-order columns,
-            # folding the dezigzag permutation in for free.
+            # zigzag coef) and scatter-add into dense (lane, nblkmax, 64)
+            # planes, mapping zigzag to natural order on the way. Each
+            # (slot, coef) cell receives at most one real emission, so
+            # the add is exact; zero padding rows add 0 (chosen by an
+            # A/B on the H100; PERF.md, Findings).
             if "noscatter" in ablate:  # fake: reshape instead of densify
                 need = nblk_total * 64
                 flat_v = buf_v.T.reshape(-1)
@@ -1119,51 +1081,14 @@ def build_decoder_core(C: int, n_lanes: int, steps: int, B: int,
                     [flat_v, jnp.zeros(pad, jnp.int32)])[:need]
                 out = out.reshape(n_img, nblk_img, 64)
             else:
-                dezig = jnp.asarray(np.argsort(zz))  # natural col -> zz pos
-                # map-chunk width: the one-hot operand hv is
-                # (CH, S, nblkmax) f32 TRANSIENT — bound it to ~1.5 GB
-                # so large-C configs (steps and nblkmax grow with
-                # CHUNK_BITS) don't OOM HBM. CH must divide the width;
-                # widths are power-of-two multiples (LANE_GRANULE lanes
-                # or the power-of-two-halved CAP), so halving from 2048
-                # always lands on a divisor.
-                ch_cap = max(1, (384 << 20) // max(steps * nblkmax, 1))
-
-                def densify_chunk(args):
-                    # NOTE (measured): an int8 variant (v split 4+8
-                    # bits, two s8xs8->s32 einsums) probed 19x faster
-                    # standalone but lowered to a 10x SLOWER in-graph
-                    # kernel (2798 ms vs 272 ms whole-decode) — XLA's
-                    # int8 dot path inside lax.map picks a catastrophic
-                    # layout. Keep f32 (exact: one emission per cell,
-                    # |v| < 2^11 within the default dot's ~16 mantissa
-                    # bits).
-                    i_c, v_c = args                   # (CH, S)
-                    hi = (i_c >> 6)[:, :, None]
-                    lo = (i_c & 63)[:, :, None]
-                    hv = (v_c.astype(jnp.float32)[:, :, None]
-                          * (hi == jnp.arange(nblkmax)[None, None, :]))
-                    ln = (lo == dezig[None, None, :]).astype(jnp.float32)
-                    # |v| < 2^11 against a 0/1 one-hot: HIGH (bf16_3x)
-                    # is exact — pinned so a single-pass-bf16 DEFAULT
-                    # backend can't corrupt values > 255 (advisor r4)
-                    return jnp.einsum(
-                        "lsb,lsc->lbc", hv, ln,
-                        preferred_element_type=jnp.float32,
-                        precision=jax.lax.Precision.HIGH)
-
                 def densify(bi, bv):   # (S, width) -> (width, nblkmax, 64)
                     width = bi.shape[1]
-                    ch = 2048
-                    while ch > 1 and (ch > ch_cap or width % ch):
-                        ch //= 2
-                    nck = width // ch
-                    d3 = jax.lax.map(
-                        densify_chunk,
-                        (bi.T.reshape(nck, ch, steps),
-                         bv.T.reshape(nck, ch, steps)))
-                    return d3.reshape(width, nblkmax, 64).astype(
-                        jnp.int32)
+                    lane = jnp.broadcast_to(
+                        jnp.arange(width, dtype=jnp.int32)[None, :],
+                        bi.shape)
+                    col = jnp.asarray(zz, jnp.int32)[bi & 63]
+                    return jnp.zeros((width, nblkmax, 64), jnp.int32).at[
+                        lane, bi >> 6, col].add(bv, mode="drop")
 
                 loc3 = densify(buf_i, buf_v)
                 # global placement: block g's OWNER is the last lane

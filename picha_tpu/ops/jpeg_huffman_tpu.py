@@ -1,4 +1,4 @@
-"""JPEG baseline Huffman ENCODING on the TPU.
+"""JPEG baseline Huffman ENCODING on the device.
 
 Huffman *decoding* is inherently serial (each symbol's position depends
 on the previous — SURVEY.md §7 hard part (b)), but encoding is not:
@@ -15,7 +15,7 @@ That makes the whole entropy-encode stage a vectorizable XLA graph:
      pinned at the zero positions 16k after the previous nonzero, EOB
      as a 65th virtual slot,
   4. (code << size) | value-bits packets (<= 27 bits, int32-safe, one
-     packed (len<<16|code) one-hot-select per symbol) and their
+     packed (len<<16|code) table lookup per symbol) and their
      absolute bit offsets via cumsums, plus a final 1-bits pad packet
      per image,
   5. bit assembly from PREFIX SUMS: a packet spans at most two words
@@ -51,15 +51,11 @@ from .jpeg_scan import ZIGZAG  # noqa: E402
 
 
 # Slot layout: every block owns exactly 65 packet slots (1 DC + 63 AC
-# positions + 1 EOB). Round 4 removed the packet-compaction stage that
-# used to shrink this to a per-image budget: its sorted scalar scatter
-# cost 114 ms of the 258 ms encode (9 ns/element — scalar scatters
-# serialize on this backend), and the only thing compaction bought was
-# a narrower Huffman-table gather, which the one-hot select below
-# replaces at DENSE width for 28.6 ms (tools/exp_encstage.py). The
-# dense per-block layout is what makes the prefix-sum bit assembly
-# possible (each block's slot range is static), and it removes the
-# content-dependent packet-overflow class entirely.
+# positions + 1 EOB). An earlier packet-compaction stage shrank this to
+# a per-image budget with a sorted scatter, which was slow on the TPU;
+# the dense per-block layout makes the prefix-sum bit assembly possible
+# (each block's slot range is static) and removes the content-dependent
+# packet-overflow class entirely.
 
 
 @functools.lru_cache(maxsize=1)
@@ -180,7 +176,7 @@ def build_scan_encoder(comp_sig, byte_cap: int, ablate: str = ""):
     ablate (profiling only, output is GARBAGE): comma-joined stage
     names replaced by shape-preserving fakes so the stage's device cost
     can be measured by difference — 'blocks' (the static MCU-order +
-    zigzag gathers), 'codes' (the Huffman-table one-hot select),
+    zigzag gathers), 'codes' (the Huffman-table lookup),
     'offsets' (the packet bit-offset cumsum), 'words' (the prefix-sum
     bit assembly), 'stuff' (the 0xFF stuffing cumsum+scatter)."""
     import jax
@@ -251,12 +247,9 @@ def build_scan_encoder(comp_sig, byte_cap: int, ablate: str = ""):
         tid = jnp.asarray(tid_np)
 
         # --- packet FIELDS, no table lookups (the dense phase) ---------------
-        # the per-slot Huffman-table gather dominated device time at
-        # dense (nblk*65) width (~50M 8 ns gathers per 16x1080p batch);
-        # only ~10-15% of slots carry a packet, so each needed slot
-        # packs a self-describing field — [0:11) value bits, [11:19)
-        # symbol, [19] table id, [20] class — and a SORTED scatter
-        # compacts them; every table lookup then runs at K width.
+        # each slot packs a self-describing field — [0:11) value bits,
+        # [11:19) symbol, [19] table id, [20] class — so the table
+        # lookup below is one gather over the packed fields.
         s = bitsize(diff)
         lo = jnp.where(diff < 0, diff - 1, diff) & ((1 << s) - 1)
         dc_field = lo | (s << 11) | (tid[None, :] << 19)        # class 0
@@ -305,20 +298,12 @@ def build_scan_encoder(comp_sig, byte_cap: int, ablate: str = ""):
         lo_v = fields & 0x7FF
         sym = (fields >> 11) & 0xFF
         row = (fields >> 19) & 3                          # class*2 + tid
-        if "codes" in ablate:  # fake: arithmetic stand-in for the select
+        if "codes" in ablate:  # fake: arithmetic stand-in for the lookup
             cl = (row * 131 + sym) | ((4 + (sym & 7)) << 16)
         else:
-            # Huffman table as a 256-wide one-hot select: measured
-            # 28.6 ms at this dense width on the real chip where the
-            # equivalent scalar gather took 140.7 ms
-            # (tools/exp_encstage.py variants C vs D)
-            t = jnp.asarray(big_packed)
-            r3 = row[:, :, None]
-            tsel = jnp.where(r3 >= 2,
-                             jnp.where((r3 & 1) == 1, t[3], t[2]),
-                             jnp.where((r3 & 1) == 1, t[1], t[0]))
-            oh = sym[:, :, None] == jnp.arange(256, dtype=jnp.int32)
-            cl = jnp.sum(jnp.where(oh, tsel, 0), axis=2)
+            # one gather from the 4x256 packed table (chosen by an A/B
+            # on the H100; PERF.md, Findings)
+            cl = jnp.asarray(big_packed).reshape(-1)[row * 256 + sym]
         sval = sym & 15
         pkt = jnp.where(alive, ((cl & 0xFFFF) << sval) | lo_v, 0)
         ln = jnp.where(alive, (cl >> 16) + sval, 0)
@@ -350,11 +335,10 @@ def build_scan_encoder(comp_sig, byte_cap: int, ablate: str = ""):
         # per-block layout: the owning block by a scatter-min over
         # blocks + reverse cummin (b*(w) = first block whose LAST slot
         # word >= w), the within-block count from a per-block
-        # cumulative histogram of slot words. This replaced two sorted
-        # scalar scatter-adds over every packet (56 ms of the round-3
-        # encode at compacted width; 9 ns/element) with vector scans
-        # plus one 2-D gather per OUTPUT word — outputs (262k words)
-        # are ~100x fewer than packet updates (25.4M dense).
+        # cumulative histogram of slot words: vector scans plus one
+        # 2-D gather per OUTPUT word instead of a scatter-add per
+        # packet — outputs (262k words) are ~100x fewer than packet
+        # updates (25.4M dense).
         nwords = -(-byte_cap // 4)
         WR = nwords + 2  # per-image word region incl. 2 trash slots
         wi = offs >> 5                                   # (N, E) monotone
@@ -511,5 +495,5 @@ def jpeg_header(width: int, height: int, comp_sig, quality: int) -> bytes:
 def assemble(header: bytes, scan: np.ndarray, nbytes: int) -> bytes:
     if nbytes > scan.size:
         raise OverflowError(
-            f"TPU Huffman scan overflowed its {scan.size}-byte buffer")
+            f"device Huffman scan overflowed its {scan.size}-byte buffer")
     return header + scan[:nbytes].tobytes() + b"\xff\xd9"

@@ -1,8 +1,8 @@
-"""Host-side JPEG scan model for the TPU entropy decoder.
+"""Host-side JPEG scan model for the device entropy decoder.
 
 The reference decodes entropy on the host inside libjpeg
 (/root/reference/src/jpegcodec.cc:100-106 drives jpeg_read_scanlines);
-the TPU-native rebuild moves even this stage onto the chip
+the device-native rebuild moves even this stage onto the chip
 (ops/jpeg_huffman_decode_tpu.py). This module is the host prep: a
 minimal baseline-JPEG structure parser (SOF/DHT/SOS/DRI + the entropy
 coded segments, 0xFF00-unstuffed and split at restart markers) and a

@@ -1,6 +1,6 @@
 """Chunked speculative JPEG Huffman decode — numpy prototype.
 
-The algorithm the TPU kernel (jpeg_huffman_decode_tpu.py) implements,
+The algorithm the device kernel (jpeg_huffman_decode_tpu.py) implements,
 in plain numpy for correctness work and convergence measurement. The
 idea (after "Accelerating JPEG Decompression on GPUs", Weissenberger &
 Schmidt 2021 — PAPERS.md): split each entropy segment into fixed-size

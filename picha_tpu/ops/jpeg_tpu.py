@@ -1,12 +1,12 @@
-"""JPEG pixel stages on TPU: dequant + IDCT + chroma upsample + colour
-transform, fused under jit.
+"""JPEG pixel stages on the device: dequant + IDCT + chroma upsample +
+colour transform, fused under jit.
 
 This is the BASELINE.json north-star fusion: the host does only the
 serial entropy decode (libjpeg coefficient I/O, native/jpegshim.cc);
 everything from quantised DCT coefficients to RGB bytes is XLA:
 
-  * IDCT as two 8x8 matmuls per block (einsum over a (..., 64) block
-    tensor) — lands on the MXU;
+  * IDCT as one (64, 64) Kronecker matmul per block (einsum over a
+    (..., 64) block tensor);
   * libjpeg-exact integer "fancy" chroma upsampling (jdsample.c
     h2v1/h2v2 semantics) in int32 vector math;
   * libjpeg-exact fixed-point YCbCr->RGB / YCCK->CMYK (jdcolor.c
@@ -17,7 +17,8 @@ The only divergence from the libjpeg host path is IDCT rounding
 (libjpeg uses the integer islow DCT): measured ≤1 LSB per sample.
 
 Encode runs the mirror pipeline (RGB->YCbCr, 2x2 box downsample,
-fDCT, quantise) with entropy coding back on the host.
+fDCT, quantise); entropy coding runs on the host or on the device
+(ops/jpeg_huffman_tpu.py).
 """
 from __future__ import annotations
 
@@ -45,15 +46,25 @@ def idct_matrix() -> np.ndarray:
 
 _IDCT_A = idct_matrix()
 
+# Matmul precision of the IDCT and fDCT contractions: DEFAULT, which
+# lets the GPU run float32 dots in TF32 (10-bit mantissa). Measured on
+# the H100 (PERF.md precision table): the staged pixels stay 0.07 LSB
+# mean from libjpeg (0.04 at HIGHEST) and the re-encode 0.70 LSB, well
+# inside the 1 LSB bound, so the cheapest precision is enough. The
+# rounding of quantised coefficients may move by one step; the device
+# Huffman encode is held byte-identical to libjpeg's encode of the SAME
+# coefficients either way.
+DCT_PRECISION = "default"
+
 
 @functools.lru_cache(maxsize=1)
 def _idct_kron() -> np.ndarray:
     """(64, 64) Kronecker IDCT: pixel_flat = coef_flat @ M with
     M[(v,u),(y,x)] = A[v,y] * A[u,x].
 
-    A single K=64 matmul instead of two K=8 matmuls — 4x the FLOPs but
-    ~10x better MXU utilisation (the systolic array wants contraction
-    depth ≥ 64), a clear win on TPU."""
+    A single K=64 matmul instead of two K=8 matmuls — 4x the FLOPs for
+    one large contraction (chosen on the TPU; not measured on the
+    H100)."""
     a = _IDCT_A.astype(np.float64)
     m = np.einsum("vy,ux->vuyx", a, a).reshape(64, 64)
     return m.astype(np.float32)
@@ -70,9 +81,10 @@ def dequant_idct_plane(coefs, qtable, out_h, out_w):
 
     bh, bw = coefs.shape[-3], coefs.shape[-2]
     f = coefs.astype(jnp.float32) * qtable.astype(jnp.float32)
-    # Kronecker IDCT: one (..., 64) @ (64, 64) contraction on the MXU
+    # Kronecker IDCT: one (..., 64) @ (64, 64) contraction
     pix = jnp.einsum("...k,kp->...p", f, jnp.asarray(_idct_kron()),
-                     preferred_element_type=jnp.float32)
+                     preferred_element_type=jnp.float32,
+                     precision=DCT_PRECISION)
     pix = pix.reshape(pix.shape[:-1] + (8, 8))
     # blocks (..., bh, bw, 8, 8) -> plane (..., bh*8, bw*8)
     pix = jnp.moveaxis(pix, -2, -3)  # (..., bh, 8, bw, 8)
@@ -222,7 +234,7 @@ def build_decode_stage(comp_sig, color_space, width, height,
     chroma upsample, colour transform -> (..., H, W, C) int32 in
     [0, 255]. `comp_sig` entries are (bh, bw, h_samp, v_samp).
 
-    Used by the single-image TPU path, the batched bucket graphs and
+    Used by the single-image device path, the batched bucket graphs and
     the training pipeline so the ≤1-LSB-of-host invariant has exactly
     one implementation. force_rgb replicates grayscale to 3 channels."""
     import jax.numpy as jnp
@@ -278,7 +290,7 @@ def _jit_decode(shape_sig, color_space, width, height):
 
 
 def decode_coefficients(co) -> np.ndarray:
-    """native.lib.JpegCoefficients -> (H, W, C) uint8 via the TPU graph."""
+    """native.lib.JpegCoefficients -> (H, W, C) uint8 via the device graph."""
     sig = tuple((c["blocks_h"], c["blocks_w"], c["h_samp"], c["v_samp"])
                 for c in co.comps)
     fn = _jit_decode(sig, co.color_space, co.width, co.height)
@@ -287,7 +299,7 @@ def decode_coefficients(co) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# encode: RGB -> quantised coefficients (fDCT on TPU)
+# encode: RGB -> quantised coefficients (fDCT on the device)
 # ---------------------------------------------------------------------------
 
 # IJG standard base tables (natural order), jcparam.c
@@ -377,7 +389,8 @@ def fdct_quant(blocks, qtable):
     b = blocks.astype(jnp.float32) - 128.0
     # forward DCT = Kronecker transpose: coef_flat = pixel_flat @ M^T
     f = jnp.einsum("...p,kp->...k", b, jnp.asarray(_idct_kron()),
-                   preferred_element_type=jnp.float32)
+                   preferred_element_type=jnp.float32,
+                   precision=DCT_PRECISION)
     q = f / qtable.astype(jnp.float32)
     return jnp.round(q).astype(jnp.int16)
 

@@ -19,7 +19,7 @@ src/resize.cc:19-50) and libjpeg's fancy-upsample (jdsample.c
 h2v2_fancy_upsample: 3/4,1/4 triangle, edge-pinned) and h2v2 box
 downsample (jcsample.c: 1/2,1/2) in float, then applies them to the raw
 planes from jpeg_read_raw_data with the AVX2 native resizer
-(native/src/hostresize.cc). It is the same linear composition the TPU
+(native/src/hostresize.cc). It is the same linear composition the device
 fused path uses (ops/jpeg_fused.py) executed on the host: measured
 ≤~0.5 LSB avg of the staged libjpeg-RGB path, at roughly half its cost
 (no upsample, no two colour conversions, chroma resized at quarter

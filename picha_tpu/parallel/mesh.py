@@ -1,7 +1,7 @@
 """Device-mesh helpers.
 
 The reference had no multi-device story (SURVEY.md §2 bottom rows);
-the TPU-native scale-out plan (SURVEY.md §5.8) is jax.sharding over a
+the device-native scale-out plan (SURVEY.md §5.8) is jax.sharding over a
 Mesh: batch axis = pure data parallelism (every op in the library is
 image-wise independent), spatial axis for oversize single images
 (parallel/spatial.py), and model axes (dp×tp) for the training-input

@@ -4,7 +4,7 @@ The reference has no multi-device story at all (SURVEY.md §2 bottom
 rows); this module completes the rebuild's parallelism alphabet
 (dp / tp / sp / ep / pp). A stack of identical stages is sharded one
 stage per 'pp' device; microbatches stream through the pipe with
-activations hopping stage->stage over ICI via `ppermute` inside a
+activations hopping stage->stage between devices via `ppermute` inside a
 `shard_map`. The schedule is the classic GPipe ramp: with S stages and
 M microbatches the loop runs S+M-1 ticks, every device computing on
 every tick once the pipe fills (bubble fraction (S-1)/(S+M-1)).
@@ -37,11 +37,7 @@ def pipeline_apply(stage_fn: Callable, stacked_params, x, mesh,
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
 
-    try:
-        shard_map = functools.partial(jax.shard_map, check_vma=False)
-    except AttributeError:  # older jax
-        from jax.experimental.shard_map import shard_map as _sm
-        shard_map = functools.partial(_sm, check_rep=False)
+    shard_map = functools.partial(jax.shard_map, check_vma=False)
 
     S = mesh.shape[axis]
     batch = x.shape[0]
@@ -76,7 +72,7 @@ def pipeline_apply(stage_fn: Callable, stacked_params, x, mesh,
                 lambda o: jax.lax.dynamic_update_index_in_dim(
                     o, act, jnp.clip(done, 0, n_micro - 1), 0),
                 lambda o: o, out)
-            # activations hop to the next stage over ICI
+            # activations hop to the next stage
             nxt = jax.lax.ppermute(
                 act, axis, [(i, (i + 1) % S) for i in range(S)])
             return (nxt, out), None

@@ -2,9 +2,9 @@
 
 The reference's "large image with bounded memory" story was a
 row-streaming ring buffer (resize.cc:52-64,83-132) plus O(1) subView
-crops. On TPU the equivalent is sharding the image's H axis across the
-mesh and exchanging a filter-support halo of rows between neighbours
-over ICI (SURVEY.md §5.7): each device resizes its output-row slab
+crops. On the device the equivalent is sharding the image's H axis across the
+mesh and exchanging a filter-support halo of rows between neighbouring
+devices (SURVEY.md §5.7): each device resizes its output-row slab
 using only its local rows plus the halo, so gigapixel inputs never
 need to be resident on one chip.
 
@@ -64,11 +64,9 @@ def _build(src_h: int, src_w: int, channels: int, dst_h: int, dst_w: int,
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
+    from jax import shard_map
 
+    from ..ops import resize as _resize
     from ..ops.resize import _apply_axis, resize_weight_rows
 
     # non-divisible sizes pad the tail and crop after (weights embed in
@@ -161,14 +159,16 @@ def _build(src_h: int, src_w: int, channels: int, dst_h: int, dst_w: int,
         tmp = _apply_axis(ext, dst_w, src_w, filter_name, fscale, axis=-2)
         if not banded:
             return jnp.einsum("oh,hwc->owc", wv_block[0], tmp,
-                              preferred_element_type=jnp.float32)
+                              preferred_element_type=jnp.float32,
+                              precision=_resize.RESIZE_PRECISION)
 
         def slice_one(s):
             return jax.lax.dynamic_slice_in_dim(tmp, s, in_len, axis=0)
 
         g = jax.vmap(slice_one)(starts_blk[0])      # (T, in_len, W, C)
         out = jnp.einsum("tik,tkwc->tiwc", wv_block[0], g,
-                         preferred_element_type=jnp.float32)
+                         preferred_element_type=jnp.float32,
+                         precision=_resize.RESIZE_PRECISION)
         return out.reshape(tiles * BAND_TILE, *out.shape[2:])[:local_out]
 
     smapped = shard_map(

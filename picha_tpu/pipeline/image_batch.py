@@ -1,12 +1,12 @@
 """Generic batched image pipeline (any codec): host decode ->
-TPU crop/resize/convert -> host encode.
+device crop/resize/convert -> host encode.
 
 Covers BASELINE.json config 4 ("256-image batched decode -> subView
 crop -> resize -> encodeWebP / encodeTiff"): formats whose bitstreams
 are fully host-bound (PNG/WebP/TIFF) decode on pool threads, then all
 pixel work runs as one jitted graph per (shape, op-chain) bucket, and
 encode returns to the pool. JPEG additionally has the
-coefficient-level TPU decode in jpeg_batch.py.
+coefficient-level device decode in jpeg_batch.py.
 """
 from __future__ import annotations
 
@@ -74,7 +74,7 @@ class ImageBatchPipeline:
                  num_threads: int = 8,
                  backend: str = "auto"):
         """backend: 'device' runs crop/resize/convert as one jit graph
-        (the TPU path); 'host' runs crop as a view + the native AVX2
+        (the device path); 'host' runs crop as a view + the native AVX2
         resize per image (measured 13x faster than the XLA:CPU graph on
         a 1-core host); 'auto' picks host when JAX's default backend is
         cpu and the op chain qualifies (u8/u16, no normalize/convert)."""

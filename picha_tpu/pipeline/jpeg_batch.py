@@ -1,24 +1,23 @@
 """Batched JPEG pipeline: the throughput path.
 
 The reference's concurrency story was one libuv thread per request
-(SURVEY.md §2 "Async execution"). The TPU-native equivalent is a
+(SURVEY.md §2 "Async execution"). The device-native equivalent is a
 two-stage pipeline (SURVEY.md §5.8):
 
   host threads:  bytes -> entropy decode -> DCT coefficient tensors
-  TPU (one jit): dequant + IDCT + upsample + YCbCr + resize + pack
+  device (one jit): dequant + IDCT + upsample + YCbCr + resize + pack
                  (optionally + fDCT + quantise for re-encode)
 
 Images are grouped into shape buckets — XLA requires static shapes —
 keyed by the coefficient-geometry signature; each bucket compiles once
 and is reused (SURVEY.md §7 hard part (c)).
 
-All pixel math runs batched over (N, ...) tensors, so the MXU sees
+All pixel math runs batched over (N, ...) tensors, so the device sees
 large matmuls (IDCT: N*blocks 8x8 contractions; resize: banded weight
 matmuls over N*H rows).
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 import os
 import threading
@@ -188,7 +187,7 @@ def stack_gap4_wire(cos, ks_floor=None, headroom: float = 1.0):
     size floor — callers whose batch content varies per step (e.g.
     TrainingInput's random ROI regions) keep a monotone high-water ks
     per signature so the jit static key converges instead of flipping
-    between buckets (each flip is a fresh remote compile).
+    between buckets (each flip is a fresh compile).
 
     headroom: over-size factor on this batch's measured pack sizes
     (see native.gap4_pack_batch) so the FIRST minted graph already
@@ -244,8 +243,8 @@ def _jit_batch_graph(sig, out_w: Optional[int], out_h: Optional[int],
     def densify(idx, val, bh, bw):
         # scatter-add the (index, value) pairs into dense blocks.
         # Indices are sorted (np.flatnonzero order) with tail padding at
-        # m-1 carrying value 0 — the sorted hint is what makes TPU
-        # scatter fast (~25 ms vs seconds unsorted for a 16x1080p batch)
+        # m-1 carrying value 0, so the scatter can take the sorted
+        # hint
         m = bh * bw * 64
 
         def one(i, v):
@@ -283,9 +282,8 @@ def _jit_batch_graph(sig, out_w: Optional[int], out_h: Optional[int],
 
     def unpack_gap8(buf):
         # single coalesced uint8 upload buffer -> per-component arrays.
-        # One transfer instead of ~15: this link pays a large fixed
-        # latency per host->device copy (measured 6x8MB at 27 MB/s vs
-        # 1x48MB at 47 MB/s), so the wire layout is one buffer with
+        # One transfer instead of ~15 (each host->device copy pays a
+        # fixed latency), so the wire layout is one buffer with
         # 4-byte-aligned sections, bitcast on device.
         from jax import lax
 
@@ -525,6 +523,16 @@ class JpegBatchPipeline:
             fast_guard = GUARD_D2_LSB if host_fast_scale else 0.0
         self._fast_guard = float(fast_guard)
         self.fast_guard_trips = 0
+        # images the device path handed to the host, by reason:
+        #   scan_parse      — upload="scan" batch the device decoder
+        #                     cannot take (progressive/arithmetic/
+        #                     multi-scan, table-id or bit-address limits)
+        #   decode_not_ok   — the device decoder did not converge
+        #   encode_overflow — the device encode overflowed its budget
+        #                     even after the doubled-cap retry
+        self.host_fallbacks = {"scan_parse": 0, "decode_not_ok": 0,
+                               "encode_overflow": 0}
+        self._fallback_lock = threading.Lock()
         # raw-domain host transcode (ops/raw420.py): resize the 4:2:0
         # planes directly with the composed downsample.resize.upsample
         # operator — strict parity (~0.6 LSB of the staged cubic path)
@@ -544,6 +552,10 @@ class JpegBatchPipeline:
         self._num_threads = num_threads or 8
         self._pool = ThreadPoolExecutor(max_workers=self._num_threads,
                                         thread_name_prefix="picha-entropy")
+
+    def _count_fallback(self, reason: str, n: int) -> None:
+        with self._fallback_lock:
+            self.host_fallbacks[reason] += n
 
     def close(self):
         """Release the entropy thread pool (losing configs in
@@ -592,6 +604,7 @@ class JpegBatchPipeline:
                     for i, b in zip(infos, bufs):
                         i.src = b
                     return infos
+            self._count_fallback("scan_parse", len(bufs))
         if (os.cpu_count() or 1) <= 1:
             return entropy_decode(bufs, None, max_threads=self._num_threads)
         return entropy_decode(bufs, self._pool,
@@ -620,7 +633,7 @@ class JpegBatchPipeline:
                 k = max(1, max(nz.size for nz in nzs))
                 k = -(-k // 16384) * 16384  # bucket to limit recompiles
                 m = flats[0].size
-                # pad with (m-1, 0): keeps indices sorted (fast TPU
+                # pad with (m-1, 0): keeps indices sorted (fast device
                 # scatter) and adds zero
                 idx = np.full((len(cos), k), m - 1, np.int32)
                 val = np.zeros((len(cos), k), np.int16)
@@ -811,6 +824,7 @@ class JpegBatchPipeline:
         quality; tests pin the overflow signalling), so paying one
         extra jit compile here beats capping everyone for the worst
         case."""
+        self._count_fallback("encode_overflow", len(cos))
         clone = self._overflow_clone
         if clone is None:
             clone = JpegBatchPipeline(
@@ -841,6 +855,7 @@ class JpegBatchPipeline:
                 # truth; the entropy_decode pre-check is only a fast
                 # approximate filter — anything it let through that the
                 # kernel rejects degrades to the host path here
+                self._count_fallback("scan_parse", len(cos))
                 return self._process(
                     entropy_decode([i.src for i in cos], self._pool,
                                    max_threads=self._num_threads))
@@ -862,6 +877,7 @@ class JpegBatchPipeline:
                 # stream) — redo the batch through host entropy decode
                 # + dense upload; same device pixel stages, identical
                 # results
+                self._count_fallback("decode_not_ok", len(srcs))
                 return self._scan_fallback(srcs)
             out = res
         if self._encode_quality is None:
@@ -1034,40 +1050,19 @@ class JpegBatchPipeline:
         return [o if o is not None else next(it) for o in outs]
 
     def host_encode_batch_staged(self, bufs, stats, q):
-        """The strict staged host path (full libjpeg decode -> exact
-        resize -> libjpeg encode) for an already-stat'ed batch — the
-        tail every faster host config falls back to per image."""
-        import jax
-
-        from ..ops.resize import resize_array
-
-        arrs = [native.jpeg_decode(b, 3 if st[2] >= 3 else 1, st[0], st[1])
-                for b, st in zip(bufs, stats)]
-        try:
-            # PICHA_NO_DEVICE: don't initialize the backend stack at
-            # all during a link outage (jax.devices hangs, not errors)
-            cpu = (None if os.environ.get("PICHA_NO_DEVICE") == "1"
-                   else jax.devices("cpu")[0])
-        except Exception:  # noqa: BLE001 — cpu-only platform
-            cpu = None
-        # per-image resize, preferring the native C++ separable path
-        # (~4x faster than the XLA:CPU graph on this 1-core host; a
-        # batched f32 call measured slower still — 400 MB intermediates)
+        """The strict staged host path (full libjpeg decode -> native
+        C++ resize -> libjpeg encode) for an already-stat'ed batch — the
+        tail every faster host config falls back to per image. Touches
+        no JAX backend."""
         from ..ops.resize import _resize_native
 
-        def one_resize(a):
+        outs = []
+        for b, st in zip(bufs, stats):
+            a = native.jpeg_decode(b, 3 if st[2] >= 3 else 1, st[0], st[1])
             r = _resize_native(a, self._width, self._height,
                                self._filter, self._fscale)
-            if r is not None:
-                return r
-            with (jax.default_device(cpu) if cpu is not None
-                  else contextlib.nullcontext()):
-                return resize_array(a, self._width, self._height,
-                                    filter=self._filter,
-                                    filter_scale=self._fscale)
-
-        rs = [one_resize(a) for a in arrs]
-        return [native.jpeg_encode(np.ascontiguousarray(r), q) for r in rs]
+            outs.append(native.jpeg_encode(np.ascontiguousarray(r), q))
+        return outs
 
     @staticmethod
     def _put(q, item, stop):
@@ -1086,7 +1081,7 @@ class JpegBatchPipeline:
         """Hybrid host+device scheduler: the device chain is kept up to
         `depth` batches deep with asynchronous dispatch and readback
         (dispatch, device_put and copy_to_host_async all return
-        immediately on this platform and is_ready() is truthful), and
+        immediately and is_ready() is truthful), and
         every moment the device pipeline is full the SAME thread runs
         the pure-host path (libjpeg + AVX2 resize) on the next batch.
 
@@ -1137,6 +1132,7 @@ class JpegBatchPipeline:
                 try:
                     pending[idx] = self._finish(sig, out)
                 except OverflowError:  # on-chip encode budget exceeded
+                    self._count_fallback("encode_overflow", len(_bufs))
                     pending[idx] = self.host_encode_batch(_bufs)
 
         pump()
@@ -1172,6 +1168,7 @@ class JpegBatchPipeline:
                     try:
                         pending[idx] = self._finish(sig, out)
                     except OverflowError:
+                        self._count_fallback("encode_overflow", len(bufs))
                         pending[idx] = self.host_encode_batch(bufs)
                 else:
                     pending[idx] = self.host_encode_batch(bufs)
@@ -1181,10 +1178,8 @@ class JpegBatchPipeline:
 
     def stream_host(self, batches):
         """Pure-host streaming: libjpeg decode -> AVX2 native resize ->
-        libjpeg encode, batch after batch. On a 1-core host behind a
-        narrow accelerator link this is the throughput baseline the
-        hybrid must beat — measured 57 img/s for 16x1080p batches
-        (2x the PIL stand-in); bench.py races it against the hybrids."""
+        libjpeg encode, batch after batch: the throughput baseline the
+        hybrid must beat; bench.py races it against the hybrids."""
         for bufs in batches:
             yield self.host_encode_batch(bufs)
 

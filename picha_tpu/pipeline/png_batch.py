@@ -1,4 +1,4 @@
-"""Batched PNG pipeline: host inflate+unfilter, spec transforms on TPU.
+"""Batched PNG pipeline: host inflate+unfilter, spec transforms on the device.
 
 SURVEY.md §7 step 4 splits PNG decode into the serial stages (inflate,
 filter reconstruction — host, native/pngfilter.cc) and the pixel

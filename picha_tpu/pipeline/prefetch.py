@@ -1,6 +1,6 @@
 """Double-buffered host->device prefetch.
 
-The TPU-era replacement for the reference's libuv overlap (SURVEY.md
+The replacement for the reference's libuv overlap (SURVEY.md
 §5.8): while the device crunches batch N, host threads entropy-decode
 batch N+1 and its transfer is already in flight. JAX dispatch is
 asynchronous, so the recipe is simply to keep `depth` batches in

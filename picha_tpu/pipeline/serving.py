@@ -1,7 +1,7 @@
 """Dynamic batching for serving.
 
 The reference's serving story was one libuv worker per request
-(SURVEY.md §2 "Async execution"); the TPU equivalent needs batching to
+(SURVEY.md §2 "Async execution"); the device equivalent needs batching to
 keep the chip fed. `DynamicBatcher` accepts single-image requests,
 groups them by coefficient signature into shape buckets, and flushes a
 bucket when it reaches `max_batch` or its oldest request exceeds
@@ -119,8 +119,8 @@ class DynamicBatcher:
             try:
                 # pad to a size multiple (jpeg_batch.pad_group): raw
                 # flush sizes (1, 3, 7, ...) would each retrace and pay
-                # a cold remote compile — minutes of request latency
-                # per distinct size on this platform
+                # a cold compile — seconds of request latency per
+                # distinct size
                 from .jpeg_batch import pad_group
 
                 padded, nreal = pad_group(cos)
@@ -197,16 +197,11 @@ def _safe_set_exception(fut: Future, exc: BaseException) -> None:
 
 
 def _race_cache_path():
-    """The winning-config cache lives next to the XLA compile cache —
-    the same "one-time cost per deployment" story."""
-    import os
-    import pathlib
-
+    """The winning-config cache lives in the XLA compile cache's
+    directory — the same "one-time cost per deployment" story."""
     from ..runtime import compile_cache
 
-    base = pathlib.Path(os.environ.get("PICHA_COMPILE_CACHE_DIR",
-                                       compile_cache._DEFAULT_DIR))
-    return base / "stream_best.json"
+    return compile_cache.enable() / "stream_best.json"
 
 
 def _race_cache_load(key: str):
@@ -297,8 +292,8 @@ def stream_best(batches, *, width, height, quality=85,
     Probing: each config first consumes one untimed warm batch (jit
     compiles, caches), then a probe chunk timed from dispatch to full
     drain with results buffered so consumer time never pollutes the
-    race. A config whose probe raises (this platform throws occasional
-    ABORTED) scores as losing and its chunk is replayed through the
+    race. A config whose probe raises (a device error) scores as
+    losing and its chunk is replayed through the
     host path — nothing is ever dropped.
 
     configs: subset of "host", "host-raw", "host-draft", "host-fast",
@@ -469,8 +464,7 @@ def _race_and_run(it, configs, winners, rates, make, host_runner,
         # device configs need TWO warm batches: stream_hybrid only
         # dispatches to the device once its backlog holds >= 2 batches,
         # so a one-batch warm would leave the device graph uncompiled
-        # and the timed probe would pay the first compile (minutes via
-        # the remote compile service)
+        # and the timed probe would pay the first compile
         warm = list(islice(it, 2 if "+" in config else 1))
         if not warm:
             break

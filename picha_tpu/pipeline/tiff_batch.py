@@ -1,4 +1,4 @@
-"""Batched TIFF pipeline: host entropy decode, array transforms on TPU.
+"""Batched TIFF pipeline: host entropy decode, array transforms on the device.
 
 SURVEY.md §7 step 6: replace pixel stages with device kernels
 opportunistically. TIFF's per-image work splits into the serial

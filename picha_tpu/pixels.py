@@ -12,7 +12,7 @@ lib/image.js:31) which made the r16g16 format unconstructible from JS;
 per SURVEY.md appendix we implement the intended 'r16g16'.
 
 Everything here is host-side metadata plus numpy/JAX packing helpers.
-The JAX versions pin exact round-half-up semantics so the TPU path is
+The JAX versions pin exact round-half-up semantics so the device path is
 bit-identical to the CPU path (SURVEY.md §7 "hard parts" (a)).
 """
 from __future__ import annotations
@@ -105,7 +105,7 @@ def pack_f32(values: np.ndarray, dtype: np.dtype) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# JAX pack/unpack (TPU path) — lazily imported so the host-only surface
+# JAX pack/unpack (device path) — lazily imported so the host-only surface
 # works without initialising a backend.
 # ---------------------------------------------------------------------------
 

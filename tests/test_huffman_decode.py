@@ -1,4 +1,4 @@
-"""TPU JPEG Huffman decoder (ops/jpeg_huffman_decode_tpu.py) and its
+"""device JPEG Huffman decoder (ops/jpeg_huffman_decode_tpu.py) and its
 host-side scan model (ops/jpeg_scan.py).
 
 Oracle: libjpeg itself — native.JpegCoefficients must match the
@@ -98,7 +98,7 @@ def test_single_component_scan_ignores_sampling_factors():
 
 
 def _tpu_encoded_444(w=32, h=32, quality=85, seed=9):
-    """A 4:4:4 baseline JPEG authored by the TPU scan encoder (JFIF
+    """A 4:4:4 baseline JPEG authored by the device scan encoder (JFIF
     APP0 header, component ids 1/2/3) from in-gamut planes."""
     import jax.numpy as jnp
 
@@ -139,7 +139,7 @@ def test_colorspace_detection_matches_libjpeg():
     """parse_baseline must reproduce libjpeg default_decompress_parms
     (jdapimin.c): JFIF => YCbCr (even with Adobe present), Adobe
     transform 0 => RGB / 1 => YCbCr, bare component ids 'R','G','B' =>
-    RGB — and the TPU decode must then match libjpeg's pixels (which
+    RGB — and the device decode must then match libjpeg's pixels (which
     skips the YCbCr transform for RGB-tagged files)."""
     import picha_tpu as picha
 
@@ -159,8 +159,8 @@ def test_colorspace_detection_matches_libjpeg():
         patched = bare[:2] + adobe(transform) + bare[2:]
         assert jpeg_scan.parse_baseline(patched).color_space == cs, transform
         host = picha.decodeJpegSync(patched)
-        tpu = picha.decodeJpegSync(patched, {"backend": "tpu"})
-        d = host.avg_channel_diff(tpu)
+        dev = picha.decodeJpegSync(patched, {"backend": "tpu"})
+        d = host.avg_channel_diff(dev)
         assert d <= 1.0, (transform, d)
 
     # component ids 'R','G','B', no JFIF/Adobe
@@ -173,8 +173,8 @@ def test_colorspace_detection_matches_libjpeg():
     ids = bytes(ids)
     assert jpeg_scan.parse_baseline(ids).color_space == 2
     host = picha.decodeJpegSync(ids)
-    tpu = picha.decodeJpegSync(ids, {"backend": "tpu"})
-    assert host.avg_channel_diff(tpu) <= 1.0
+    dev = picha.decodeJpegSync(ids, {"backend": "tpu"})
+    assert host.avg_channel_diff(dev) <= 1.0
 
 
 def test_fractional_sampling_routes_to_host():
@@ -196,7 +196,7 @@ def test_fractional_sampling_routes_to_host():
     buf = native.jpeg_coef_write(24, 8, comps)
     assert jpeg_scan.parse_baseline(bytes(buf)) is None
     # libjpeg's COEFFICIENT reader accepts such files (only its pixel
-    # path errors), so the TPU path's own guard must fire
+    # path errors), so the device path's own guard must fire
     with pytest.raises(picha.CodecError, match="ampling"):
         picha.decodeJpegSync(buf, {"backend": "tpu"})
     with pytest.raises(picha.CodecError):
@@ -247,7 +247,7 @@ def test_native_segment_parallel_decoder_exact():
 def test_native_segment_decoder_corrupt_scans_never_crash():
     """jpegentropy.cc consumes untrusted bitstreams in native code:
     scan-body mutations that survive parse_baseline must decode to
-    SOMETHING (garbage-in-garbage-out, like the TPU kernel) without
+    SOMETHING (garbage-in-garbage-out, like the device kernel) without
     crashing, raising, or writing out of bounds — any thread count.
     (An 8000-mutant soak ran clean; this pins a 400-mutant sample.)"""
     rng = np.random.default_rng(1)

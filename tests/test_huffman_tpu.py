@@ -1,4 +1,4 @@
-"""TPU Huffman encoder vs libjpeg — the scan bytes must be IDENTICAL.
+"""device Huffman encoder vs libjpeg — the scan bytes must be IDENTICAL.
 
 Both sides encode the same quantised coefficients with the standard
 Annex K tables (no optimisation, no restart markers), so everything
@@ -218,7 +218,7 @@ def test_440_subsampling_parity_with_libjpeg():
     got = picha.decodeJpegSync(buf, {"backend": "tpu"})
     diff = np.abs(np.asarray(got.to_array()).astype(int)
                   - want.astype(int)).mean()
-    assert diff <= 1.0, f"staged TPU 4:4:0 decode diff {diff:.3f} LSB"
+    assert diff <= 1.0, f"staged device 4:4:0 decode diff {diff:.3f} LSB"
 
     # fused path (decode-only identity resampling) must agree too
     from picha_tpu.pipeline import JpegBatchPipeline

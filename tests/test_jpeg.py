@@ -1,6 +1,6 @@
 """JPEG codec tests — mirrors reference test/jpeg_codec.js (parameterised
 fixtures incl. progressive/grey/CMYK, q100 round-trip < 8, alpha-input
-encodes) plus TPU-path parity vs the host path."""
+encodes) plus device-path parity vs the host path."""
 import numpy as np
 import pytest
 
@@ -29,10 +29,10 @@ def test_stat_and_decode(name, w, h, pixel):
 def test_tpu_path_matches_host(name, w, h, pixel):
     buf = fixture_bytes(name)
     host = picha.decodeJpegSync(buf)
-    tpu = picha.decodeJpegSync(buf, {"backend": "tpu"})
-    assert tpu.pixel == host.pixel
+    dev = picha.decodeJpegSync(buf, {"backend": "tpu"})
+    assert dev.pixel == host.pixel
     # ≤1 LSB average divergence (IDCT rounding only)
-    assert host.avg_channel_diff(tpu) <= 1.0
+    assert host.avg_channel_diff(dev) <= 1.0
 
 
 def test_q100_roundtrip():
@@ -155,8 +155,8 @@ def _make_jpeg_with_sampling(h_samp, v_samp):
 def test_tpu_path_sampling_modes(h_samp, v_samp):
     buf = _make_jpeg_with_sampling(h_samp, v_samp)
     host = picha.decodeJpegSync(buf)
-    tpu = picha.decodeJpegSync(buf, {"backend": "tpu"})
-    assert host.avg_channel_diff(tpu) <= 1.0
+    dev = picha.decodeJpegSync(buf, {"backend": "tpu"})
+    assert host.avg_channel_diff(dev) <= 1.0
 
     # fused (decode-only identity resampling) must match the same
     # libjpeg oracle through the linear fold
@@ -189,7 +189,7 @@ def test_progressive_encode_roundtrip():
 
 def test_encode_options_identical_across_backends():
     """subsample/optimize must not silently depend on the backend: the
-    host path (libjpeg) honors them like the TPU branch does."""
+    host path (libjpeg) honors them like the device branch does."""
     from picha_tpu.ops.jpeg_scan import parse_baseline
 
     rng = np.random.default_rng(41)
@@ -206,15 +206,15 @@ def test_encode_options_identical_across_backends():
 
 def test_grey_request_is_y_passthrough_on_tpu_backend():
     """libjpeg's grayscale output from a YCbCr source is the raw Y
-    plane; the TPU path must not round-trip through clipped RGB (which
+    plane; the device path must not round-trip through clipped RGB (which
     diverges by several LSBs on out-of-gamut chroma)."""
     sat = np.zeros((64, 64, 3), np.uint8)
     sat[..., 0] = 255  # pure red: chroma far outside the RGB gamut
     buf = picha.encodeJpegSync(picha.Image.from_array(sat, "rgb"),
                                {"quality": 85})
     host = picha.decodeJpegSync(buf, {"pixel": "grey"})
-    tpu = picha.decodeJpegSync(buf, {"pixel": "grey", "backend": "tpu"})
-    assert host.avg_channel_diff(tpu) <= 1.0
+    dev = picha.decodeJpegSync(buf, {"pixel": "grey", "backend": "tpu"})
+    assert host.avg_channel_diff(dev) <= 1.0
 
 
 def test_option_errors_are_typed_and_surface_through_sniffing():

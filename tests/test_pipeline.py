@@ -123,8 +123,7 @@ def test_training_input_deterministic_and_resumable(jpeg_bufs):
 def test_training_input_ks_high_water(jpeg_bufs):
     """The per-signature gap4 ks must be MONOTONE across steps (random
     ROI draws vary in packed size; a ks that shrinks or oscillates
-    mints a fresh jit graph per bucket — minutes each via the remote
-    compile service), and inflating it must not change values (padding
+    mints a fresh jit graph per bucket), and inflating it must not change values (padding
     rows are no-op encoded)."""
     files = jpeg_bufs * 4
     a = TrainingInput(files, batch=4, crop=40, size=32, seed=7)
@@ -809,8 +808,8 @@ def test_image_batch_pipeline_mixed_formats():
 
 
 def test_stream_best_config_failure_replays_on_host(jpeg_bufs, monkeypatch):
-    """A device config whose probe raises (this platform throws
-    occasional ABORTED) scores as losing; its consumed batches replay
+    """A device config whose probe raises (a device error) scores as
+    losing; its consumed batches replay
     through the host path — every batch is yielded exactly once."""
     from picha_tpu.pipeline import jpeg_batch, stream_best
 
@@ -1002,7 +1001,7 @@ def test_stream_best_cached_winner_failure_replays(tmp_path, monkeypatch):
     from picha_tpu.pipeline import serving
     import picha_tpu.pipeline.jpeg_batch as jb
 
-    monkeypatch.setenv("PICHA_COMPILE_CACHE_DIR", str(tmp_path))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
     rng = np.random.default_rng(0)
     bufs = [native.jpeg_encode(
         rng.integers(0, 256, (64, 80, 3), np.uint8).astype(np.uint8), 88)

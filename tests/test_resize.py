@@ -1,6 +1,6 @@
 """Resize tests.
 
-The matmul (MXU) formulation is validated against an independent
+The matmul formulation is validated against an independent
 windowed-loop implementation of the reference algorithm
 (src/resize.cc:66-134), plus option-semantics unit checks. The golden
 fixture parity test (test2.jpg -> 32x24 vs test2.png, reference
